@@ -1,9 +1,9 @@
-"""Standalone measured full CPU prover leg (no TPU involved).
+"""Standalone measured full CPU prover leg (no accelerator involved).
 
 Runs native/cpu_prover.groth16_prover_cpu for a bench_prover-compatible
 configuration on the host CPU only (jax forced to the CPU backend for the
 table/plan machinery) and emits one JSON row.  Use on an otherwise idle
-box; pair with the matching TPU row from BENCH_PROVER_r05 for ratios.
+machine; pair with the matching GPU row of bench_prover.py for ratios.
 
 Usage: python bench_cpu_full.py [--log-m 14] [--ring rq --N 8192
        --n-inner 16384] [--L 2] [--threads N] [--out file.json]

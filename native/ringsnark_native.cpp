@@ -1,7 +1,7 @@
 // ringsnark-tpu native support library (C++17, no external dependencies).
 //
 // Role (DESIGN.md §6): the golden oracle and single-core CPU baseline for the
-// JAX/Pallas compute path — the stand-in for the reference's SEAL backend
+// JAX compute path — the stand-in for the reference's SEAL backend
 // (whose submodules are empty and unbuildable).  Implements the same spec as
 // ops/modops.py and ops/ntt.py with scalar 64-bit code: Barrett/plain modular
 // arithmetic, negacyclic/cyclic NTT in the identical bit-reversal-free
@@ -225,7 +225,7 @@ void rn_cyclic_intt(u32* data, u64 batch, u32 M, u32 p, u32 w) {
 // ct rows stream sequentially (prefetch-friendly) and the u128
 // accumulators stay cache-resident.  The j-outer form (r4/r5-early) paid a
 // 16 KB stride per access and ran ~4x slower — a weaker CPU baseline would
-// flatter the TPU ratios, so the strongest reasonable form is used.
+// flatter the accelerator ratios, so the strongest reasonable form is used.
 void rn_ip_accumulate(const u32* ct, const u32* pt, u32* acc, u64 batch,
                       u64 n, u32 p) {
 #pragma omp parallel

@@ -1,6 +1,6 @@
 """Linear-only homomorphic encodings E(.) — batched symmetric BGV over RNS.
 
-TPU-native replacement for the reference's SEAL-backed `EncodingElem`
+Accelerator-native replacement for the reference's SEAL-backed `EncodingElem`
 (`/root/reference/ringsnark/seal/seal_ring.hpp:216-409`): one BGV context per
 outer RNS limb becomes a leading array axis; encode/decode/add/mul-plain/
 modswitch/inner-product are batched jnp kernels.

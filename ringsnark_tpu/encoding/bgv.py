@@ -113,11 +113,10 @@ def _sample_error_ntt(ctx: EncodingContext, key, batch_shape):
 
     Deviation from SEAL's clipped discrete Gaussian: CBD matches the target
     variance (sigma=3.2 -> k=21, sigma_cbd=3.24) and is the standard
-    Gaussian replacement in lattice schemes (Kyber/NewHope).  The switch is
-    a measured necessity: `jax.random.normal`'s erfinv on the VPU measured 661 ms per
-    65536-row encode chunk (the whole encrypt was 608 ms) (chip_logs/encprof_r04c.log) —
-    CBD is two popcounts per coefficient.  |e| <= k << Q_j, so the
-    per-limb residue is a conditional add."""
+    Gaussian replacement in lattice schemes (Kyber/NewHope), and costs two
+    popcounts per coefficient where `jax.random.normal` runs an erfinv
+    chain.  |e| <= k << Q_j, so the per-limb residue is a conditional
+    add."""
     k = _cbd_k(ctx.error_stddev)
     # k > 32 (sigma > 4) draws multiple uint32 words per side; the last
     # word is masked to the remaining k mod 32 bits

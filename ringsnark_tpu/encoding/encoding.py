@@ -121,25 +121,19 @@ class Encoding:
         return cls(ctx, z, z, level)
 
 
-# Per-call transform-volume cap for the batched encode: past it the
-# internal negacyclic NTTs exceed the Pallas unrolled call-volume cap
-# (`ops/ntt._PALLAS_MAX_CALL_UNITS`) and fall back to the ~5x-slower XLA
-# path inside one enormous program — the r4 in-circuit-NTT circuit (4098
-# dense io rows at N'=16384) spent 330 s of "setup" compiling exactly
-# that.  Chunking the batch axis reuses ONE compiled per-chunk kernel.
-import os as _os
-
-_ENCODE_CHUNK_ELEMS = int(
-    _os.environ.get("RINGSNARK_ENCODE_CHUNK_ELEMS", 1 << 22)
-)
+# Residues per encode call (2^22 = 16 MiB per ciphertext component): a
+# batch past it is encrypted in chunks, so every large batch reuses ONE
+# compiled per-chunk kernel instead of compiling a program per batch size,
+# and device memory holds one chunk's encryption temporaries at a time.
+_ENCODE_CHUNK_ELEMS = 1 << 22
 
 
 def encode(ctx: EncodingContext, sk: SecretKey, rs: RingElem, key) -> Encoding:
     """Encrypt a RingElem batch ([B, L, n] slots) under the per-limb keys.
 
     Batched kernel (vs the reference's per-element OpenMP loop,
-    `seal_ring.tcc:336-357`), chunked along the batch axis so the internal
-    transforms stay on the Pallas fast path; chunk i draws its randomness
+    `seal_ring.tcc:336-357`), chunked along the batch axis (see
+    `_ENCODE_CHUNK_ELEMS`); chunk i draws its randomness
     from `fold_in(key, i)` (one chunk encrypts with `key` itself, so small
     batches are unchanged).  `key` is a jax PRNG key.
     """

@@ -5,7 +5,7 @@ variable index 0 is the constant 1 (`protoboard.tcc:17-26`), allocations
 initially count as auxiliary (`protoboard.tcc:34-45`), `set_input_sizes`
 re-partitions primary/auxiliary by index prefix (`protoboard.tcc:142-146`).
 
-TPU additions: `full_assignment_batch()` materializes the assignment
+Batched additions: `full_assignment_batch()` materializes the assignment
 (with the leading constant) as one `RingElem` batch for the jitted pipeline.
 """
 

@@ -1,1 +1,2 @@
-"""Low-level compute ops: modular arithmetic, NTT, Pallas kernels."""
+"""Low-level compute ops: modular arithmetic, NTT (plain XLA path and the
+GPU kernels' route), primes."""

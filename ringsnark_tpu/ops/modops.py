@@ -2,9 +2,9 @@
 
 Residues are uint32 arrays; every limb prime p < 2^31 so 62-bit products fit
 exactly in uint64.  Reduction is Barrett (no division in jitted code).  This
-is the portable path used by all non-Pallas code; the Pallas kernels
-(``pallas_ntt.py``) use pure-uint32 Shoup multiplies built from 16-bit
-partial products instead.
+is the portable path used by all jnp code; the CUDA NTT kernels
+(``native/ntt_cuda.cu``) use uint32 Shoup multiplies with a native
+32x32->64 high word instead.
 
 Replaces `seal::util::{add,sub,negate,multiply}_uint_mod` and
 `barrett_reduce_64` (reference call-sites:

@@ -5,7 +5,7 @@ The whole framework works with RNS limbs that are primes ``p < 2**31``
 (pure Python ints / numpy): it generates prime chains, primitive roots and
 CRT constants.  The reference uses SEAL's 36-60-bit primes
 (``/root/reference/ringsnark/seal/seal_util.hpp:20-32``); we trade limb width
-for limb count so every modular multiply fits TPU 32-bit lanes.
+for limb count so every modular multiply fits 32-bit integer lanes.
 """
 
 from __future__ import annotations

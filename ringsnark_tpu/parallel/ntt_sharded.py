@@ -3,11 +3,11 @@
 The reference's `ntt_inplace` is single-core shared-memory
 (SURVEY.md §2.3, `/root/reference/` SEAL backend call-sites at
 `ringsnark/seal/seal_ring.tcc` / `microbench.cpp:148-159`); this module is the
-TPU-native scale-out equivalent: the transform's coefficient axis is sharded
+multi-device scale-out equivalent: the transform's coefficient axis is sharded
 over a mesh axis and the first ``log2(D)`` butterfly stages exchange blocks
-with their partner device via ``lax.ppermute`` (ICI neighbor traffic), after
-which all remaining stages are device-local and reuse the single-chip NTT
-path (XLA or Pallas).
+with their partner device via ``lax.ppermute`` (NVLink peer traffic between GPUs), after
+which all remaining stages are device-local and reuse the single-device NTT
+(``ops.ntt``, routed by ``ntt_route``).
 
 Why this decomposition is exact: with DIF stage ``s`` pairing elements at
 distance ``d = M >> (s+1)``, a block layout of ``Mc = M/D`` contiguous

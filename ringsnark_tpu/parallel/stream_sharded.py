@@ -13,8 +13,8 @@ reduced result is BIT-IDENTICAL to the single-device kernel
 `__graft_entry__.dryrun_multichip`).
 
 Communication per chunk: n_pts * 2 psums of [L, L', N'] u64 — at the
-reference shape (L'=4, N'=16384) that is ~1 MiB per inner product,
-DCN-feasible; everything else is device-local.
+reference shape (L'=4, N'=16384) that is ~1 MiB per inner product;
+everything else is device-local.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Statement data structures: variables, linear combinations, R1CS, QRP.
 
 Mirrors the reference layer L3 (`/root/reference/ringsnark/relations/`) with a
-TPU twist: constraint systems compile to CSR index/coefficient arrays so that
+Accelerator twist: constraint systems compile to CSR index/coefficient arrays so that
 constraint evaluation is a jitted gather + segment-sum instead of per-object
 loops.
 """

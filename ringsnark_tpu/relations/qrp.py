@@ -2,7 +2,7 @@
 
 Mirrors `/root/reference/ringsnark/relations/arithmetic_programs/qrp/qrp.hpp:
 49-219` (+.tcc).  Containers are duck-typed: the generic host path stores
-lists of ring elements, the TPU fast path stores `RingElem` batches
+lists of ring elements, the batched fast path stores `RingElem` batches
 ([len, L, n] arrays) in the same fields.
 """
 

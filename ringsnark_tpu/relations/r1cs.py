@@ -6,7 +6,7 @@ r1cs/r1cs.hpp:50-162` (+ `.tcc`): `R1CSConstraint{a,b,c}`,
 `is_valid`, `add_constraint`, `swap_AB_if_beneficial` (density heuristic,
 `r1cs.tcc:176-226`), serialization.
 
-TPU twist: `compile()` lowers the three sparse matrices to COO index/coeff
+Accelerator twist: `compile()` lowers the three sparse matrices to COO index/coeff
 arrays; `eval_matrices` is a jitted gather + segment-sum (the SpMV used by
 the witness map and verifiers), batched over all three matrices at once.
 """

@@ -1,6 +1,6 @@
 """Ring backends: R_q = Z_q[X]/(X^N+1) in slot form, and the Z_q integer ring.
 
-TPU-native replacement for the reference's SEAL-backed ring layer
+Accelerator-native replacement for the reference's SEAL-backed ring layer
 (`/root/reference/ringsnark/seal/seal_ring.hpp`,
 `/root/reference/ringsnark/seal_int/seal_ring.hpp`).
 """

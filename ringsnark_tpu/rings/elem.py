@@ -1,6 +1,6 @@
 """Ring elements as struct-of-arrays pytrees in slot form.
 
-TPU-native replacement for the reference's
+Accelerator-native replacement for the reference's
 `RingElem = variant<uint64_t, SealPoly>` (`seal/seal_ring.hpp:26`): the
 scalar/poly variant becomes a broadcastable trailing axis of size 1 or N, and
 a "vector<RingElem>" becomes a leading batch axis, so protocol inner loops
@@ -239,7 +239,7 @@ class RingElem:
         """Stack a list into a batch, promoting scalars to a common slot axis.
 
         Dispatch-frugal for long mixed lists: the naive form issued one
-        broadcast per element plus one enormous stack — ~4100 relay
+        broadcast per element plus one enormous stack — ~4100 device
         dispatches per prove/verify for the wide-io circuits (in-circuit
         NTT: 4096 scalar wires + 1 dense).  Elements are bucketed by
         shape, each bucket stacked in <=256-operand groups, broadcast

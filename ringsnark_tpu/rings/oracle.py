@@ -4,7 +4,7 @@ The analog of the reference's `PrimitiveWrapper<double>` fake backend
 (`/root/reference/ringsnark/util/test_utils.hpp:7-68`): a minimal exact
 implementation of the ring interface with no JAX involvement, used to test
 generic algorithms (interpolation, domains, reductions) independently of the
-TPU path, and as ground truth in cross-checks.
+device path, and as ground truth in cross-checks.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Proof systems: Rinocchio and ringGroth16 over rings.
 
-Mirrors `/root/reference/ringsnark/zk_proof_systems/` on top of the TPU-native
-ring/encoding/reduction layers.
+Mirrors the reference's `ringsnark/zk_proof_systems/` on top of the
+accelerator-native ring/encoding/reduction layers.
 """
 
 from .api import KeyPair  # noqa: F401

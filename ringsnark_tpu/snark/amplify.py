@@ -20,7 +20,7 @@ statement: the failing limb must pass K independent evaluations.  With
 The reference reaches deployable soundness differently — single 55-60-bit
 SEAL limbs give eps_1 ~ 2^-36..-41 at 2^18 (`seal/seal_ring.hpp:72-88`
 samples one s from Z_{q1}) — at the cost of 64-bit host arithmetic.  On
-TPU, u32 limbs x K repetitions buy the same error with word-size ops; the
+the accelerator, u32 limbs x K repetitions buy the same error with word-size ops; the
 prover cost is exactly K x the one-limb cost, which is what the
 multi-limb bench rows already measure (a repetition and an extra RNS limb
 run the same kernels).

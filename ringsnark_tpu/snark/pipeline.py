@@ -3,8 +3,8 @@
 The object-level provers in rinocchio.py/groth16.py orchestrate a handful of
 jitted kernels; these pipelines fuse the whole prover (witness map + all
 encoding inner products) into ONE jit-compiled function of raw arrays — the
-unit the TPU bench, the sharded multi-chip path (parallel/) and the driver's
-compile checks use.
+unit the benches, the sharded multi-device path (parallel/) and the
+compile checks of `__graft_entry__.py` use.
 
 Statics: (domain, enc_ctx, use_modswitch).  CRS and assignments are pytrees
 of arrays, so sharding annotations on the inputs propagate through the whole

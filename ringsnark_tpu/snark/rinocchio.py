@@ -5,7 +5,7 @@ Mirrors `/root/reference/ringsnark/zk_proof_systems/rinocchio/rinocchio.tcc`
 companion spec docs/Rinocchio.pdf): CRS of encoded s-powers and lincheck
 terms, 9-element proof (A, A', B, B', C, C', D, D', F), 6 verifier checks.
 
-TPU design: all CRS vectors are single `Encoding`/`RingElem` batches; the
+Batched design: all CRS vectors are single `Encoding`/`RingElem` batches; the
 prover's 10 OpenMP-section inner products (`rinocchio.tcc:106-163`) become
 batched multiply-accumulate kernels with the staged modswitch schedule.
 """

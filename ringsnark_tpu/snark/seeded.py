@@ -23,12 +23,8 @@ the reference's in-RAM `vector<EncT>` CRS.
 PRNG convention: slab i of an encoding batch draws its randomness from
 `fold_in(key, i)`, split exactly as `bgv._encrypt_kernel` splits — so c1 of
 slab i is `_sample_uniform(ctx, split(fold_in(key, i))[0], (slab,))`.  Any
-typed key impl works; benches pass `jax.random.key(seed,
-impl='threefry2x32')`: measured r5 on chip (chip_logs/probe_mac_r05.log,
-65536-row chunk, L'=3, N'=4096), an rbg key's RngBitGenerator op inside the
-MAC scan body costs ~360 ms of stall per chunk that threefry does not
-(2-pt MAC: 104 ms threefry vs 453 ms rbg; same encode speed) — the r3 note
-that "threefry regen would dominate the MAC" had it exactly backwards.
+typed key impl works; the benches and chip_smoke.py pass
+`jax.random.key(seed, impl='threefry2x32')`.
 """
 
 from __future__ import annotations
@@ -144,16 +140,14 @@ def _encode_slab_kernel(ctx: EncodingContext, s_ntt, data_i, key,
 
 def _encode_seeded_kernel(ctx: EncodingContext, s_ntt, data_pad, key,
                           slab: int, nslab: int):
-    # Python loop over slabs, ONE jitted per-slab kernel reused: keeps the
-    # error-sampling NTT a TOP-LEVEL Pallas call.  The r3 lax.scan form ran
-    # the transform inside the scan body, where it lowered off the fast path
-    # (measured: the error leg was 586 of 608 ms per 65536-row chunk —
-    # chip_logs/encprof_r04.log); dispatches pipeline on device, so the loop
-    # adds no sync overhead.  Slab i still draws from fold_in(key, i) — c1
-    # regeneration in the MAC is bit-identical.
+    # Python loop over slabs, ONE jitted per-slab kernel reused: one small
+    # compiled program, and device memory holds one slab's encryption
+    # temporaries at a time; dispatches queue asynchronously, so the loop
+    # adds no sync.  Slab i draws from fold_in(key, i) — c1 regeneration in
+    # the MAC is bit-identical.
     #
     # dense rings: data_pad is the PRE-TRANSFORMED [B, L, L', N'] operand
-    # (see `_pre_ntt_chunked`); scalar path: the raw [B, L, 1] slot batch
+    # (see `_pre_ntt_kernel`); scalar path: the raw [B, L, 1] slot batch
     # (the NTT-free broadcast happens inside the kernel, so the full
     # [B, L, L', N'] plaintext operand is never materialized in HBM).
     dense = ctx.ring.N > 1
@@ -167,25 +161,6 @@ def _encode_seeded_kernel(ctx: EncodingContext, s_ntt, data_pad, key,
     return jnp.concatenate(c0s, axis=0) if len(c0s) > 1 else c0s[0]
 
 
-def _pre_ntt_chunked(ctx: EncodingContext, arr, chunk: int):
-    """plain_to_inner_ntt over row chunks as SEPARATE jit calls.
-
-    One batched transform over a full CRS phase exceeds the Pallas unrolled
-    call-volume cap (`ops/ntt._PALLAS_MAX_CALL_UNITS`) and falls back to the
-    ~5x-slower XLA path — the r3 dense-mode throughput gap (DESIGN §10).
-    Chunked calls compile one small program, reuse it, and stay on the
-    kernel; concatenation is exact (rows never interact).
-    """
-    B = arr.shape[0]
-    if B <= chunk:
-        return _pre_ntt_kernel(ctx, arr)
-    assert B % chunk == 0, (B, chunk)
-    return jnp.concatenate(
-        [_pre_ntt_kernel(ctx, arr[lo : lo + chunk]) for lo in range(0, B, chunk)],
-        axis=0,
-    )
-
-
 def encode_seeded(
     ctx: EncodingContext, sk, rs: RingElem, key, slab: int = DEFAULT_SLAB
 ) -> SeededEncoding:
@@ -195,9 +170,7 @@ def encode_seeded(
     slab = min(slab, max(8, B))
     slots_pad = _pad_slab(slots, slab)
     nslab = slots_pad.shape[0] // slab
-    data_pad = (
-        _pre_ntt_chunked(ctx, slots_pad, slab) if ctx.ring.N > 1 else slots_pad
-    )
+    data_pad = _pre_ntt_kernel(ctx, slots_pad) if ctx.ring.N > 1 else slots_pad
     c0 = _encode_seeded_kernel(ctx, sk.s_ntt, data_pad, key, slab, nslab)
     return SeededEncoding(ctx=ctx, c0=c0, key=key, slab=slab, batch=B)
 
@@ -206,132 +179,25 @@ def encode_seeded(
 # scan MAC
 # ---------------------------------------------------------------------------
 #
-# Two device paths, bit-identical results (tests/test_seeded.py):
-#
-# * "u64"  — generic: u64-emulated Barrett multiply + exact u64 lazy sums.
-#   Works for any plaintext shape (incl. dense Rq polynomials).
-# * "mxu"  — the Z_q fast path (N == 1): each CRS term's plaintext is a
-#   SCALAR, so the MAC  sum_i c[i, :] * w[i]  is a vector-matrix product.
-#   Decompose both operands into 4 bytes and run u8 x u8 -> i32
-#   `dot_general` contractions on the MXU (exact: every byte-product
-#   partial sum < 2^31 for slabs <= 8192), then recombine the 16 partials
-#   mod p with one Barrett per shift class.  This moves the prover's
-#   dominant op from emulated-u64 VPU work onto the systolic array — the
-#   reference's OpenMP MAC loop (`rinocchio.tcc:106-163`,
-#   `seal/seal_ring.tcc:509-548`) has no analog of this reformulation.
-#
-# Mode: RINGSNARK_MAC_BACKEND in {auto, mxu, u64}; auto = mxu when the
-# scalar fast path applies.
+# u64-emulated Barrett products with exact u64 lazy sums, for any plaintext
+# shape.  Two modes share the scan body: "u64" takes plaintext slots and
+# transforms each term inside the scan (scalar Z_q plaintexts need no
+# transform: `plain_to_inner_ntt` broadcasts them); "dense" takes the
+# pre-transformed [B, L, L', N'] operand of the polynomial rings.
 
 
-def _mac_mode() -> str:
-    import os
-
-    return os.environ.get("RINGSNARK_MAC_BACKEND", "auto")
-
-
-def _bytes_u32(x):
-    """u32[...] -> u8[4, ...] little-endian byte planes."""
-    return jnp.stack(
-        [((x >> jnp.uint32(8 * k)) & jnp.uint32(0xFF)).astype(jnp.uint8)
-         for k in range(4)]
-    )
-
-
-def _mac_slab_mxu(ctx: EncodingContext, c0s, c1s, pt_slabs, p, mu, b):
-    """One slab's MACs on the MXU (scalar-plaintext fast path).
-
-    c0s/c1s: [S, L, L', N']; pt_slabs: tuple of [S, L, 1] slot arrays.
-    Returns tuple per pt of (m0, m1) canonical uint32 [L, L', N'].
-    """
-    S = c0s.shape[0]
-    L, Lp, Np = ctx.L, ctx.L_inner, ctx.n_inner
-    n_pts = len(pt_slabs)
-    assert S <= 8192, "byte-product partial sums must stay below 2^31"
-    # scalar plaintext lifts [P, S, L, L'] and their byte planes
-    w = jnp.stack([_lift_centered(ctx, pt, 0)[..., 0] for pt in pt_slabs])
-    wb = _bytes_u32(w)  # [4, P, S, L, L']
-    lhs = wb.transpose(3, 4, 1, 0, 2).reshape(L, Lp, n_pts * 4, S)
-    cb = _bytes_u32(jnp.stack([c0s, c1s]))  # [4, 2, S, L, L', N']
-    rhs = cb.transpose(3, 4, 2, 1, 0, 5).reshape(L, Lp, S, 8 * Np)
-    out = jax.lax.dot_general(
-        lhs, rhs, (((3,), (2,)), ((0, 1), (0, 1))),
-        preferred_element_type=jnp.int32,
-    )  # [L, L', P*4, 8*N']
-    out = out.reshape(L, Lp, n_pts, 4, 2, 4, Np).astype(jnp.uint64)
-    # recombine: group byte products by shift class s = j + k, reduce, scale.
-    # T layout is [L, L', P, 2, N'] — realign the [L', 1] limb consts to it.
-    def align(c):
-        return c[:, 0][None, :, None, None, None]  # -> [1, L', 1, 1, 1]
-
-    pA, muA, bA = align(p), align(mu), align(b)
-    pw2 = np.stack(
-        [
-            np.array([(1 << (8 * s)) % q for q in ctx.inner_primes],
-                     dtype=np.uint64)
-            for s in range(7)
-        ]
-    )  # [7, L']
-    res = jnp.zeros((L, Lp, n_pts, 2, Np), dtype=jnp.uint32)
-    for s in range(7):
-        terms = [
-            out[:, :, :, k, :, j, :]
-            for k in range(4)
-            for j in range(4)
-            if j + k == s
-        ]
-        T = terms[0]
-        for t in terms[1:]:
-            T = T + t  # u64 exact: < 4 * 255^2 * 8192 < 2^33
-        T = barrett_reduce_u64(T, pA, muA, bA).astype(jnp.uint64)
-        T = barrett_reduce_u64(
-            T * pw2[s][None, :, None, None, None], pA, muA, bA
-        )
-        res = add_mod(res, T, pA.astype(jnp.uint32))
-    res = res.transpose(2, 3, 0, 1, 4)  # [P, 2, L, L', N']
-    return tuple((res[i, 0], res[i, 1]) for i in range(n_pts))
-
-
-@partial(jax.jit, static_argnames=("ctx", "slab", "n_pts", "mode"))
-def _seeded_mac_kernel(
-    ctx: EncodingContext, c0, key, pts, slab: int, n_pts: int, mode: str = "u64"
-):
-    """sum_i E_i * r_i at level 0 for n_pts plaintext batches sharing one CRS.
+@partial(jax.jit, static_argnames=("ctx", "slab", "mode"))
+def _seeded_mac_kernel(ctx: EncodingContext, c0, key, pts, slab: int,
+                       mode: str = "u64"):
+    """sum_i E_i * r_i at level 0 for several plaintext batches sharing one
+    CRS.
 
     c0: [B_pad, L, L', N']; pts: tuple of [B_pad, L, n] slot arrays (zero
     rows beyond each true batch).  Returns tuple of (acc0, acc1) uint32
     [L, L', N'] — bit-identical to Encoding.sum_batch of the expanded path
     (canonical residues; u64 sums exact for B < 2^33).
     """
-    B_pad = c0.shape[0]
-    nslab = B_pad // slab
-    Lp = ctx.L_inner
-    c0r = c0.reshape(nslab, slab, *c0.shape[1:])
-    ptsr = tuple(p.reshape(nslab, slab, *p.shape[1:]) for p in pts)
     p, mu, b = ctx.inner_consts(0)
-
-    def step_mxu(accs, xs):
-        i, c0s = xs[0], xs[1]
-        pt_slabs = xs[2:]
-        c1s = _sample_uniform(ctx, _slab_c1_key(key, i), (slab,))
-        macs = _mac_slab_mxu(ctx, c0s, c1s, pt_slabs, p, mu, b)
-        return (
-            tuple(
-                (add_mod(a0, m0, p), add_mod(a1, m1, p))
-                for (a0, a1), (m0, m1) in zip(accs, macs)
-            ),
-            None,
-        )
-
-    if mode == "mxu":
-        zero = jnp.zeros((ctx.L, Lp, ctx.n_inner), dtype=jnp.uint32)
-        init = tuple((zero, zero) for _ in range(n_pts))
-        accs, _ = jax.lax.scan(
-            step_mxu, init, (jnp.arange(nslab), c0r) + ptsr
-        )
-        return accs
-    # "u64" (generic slot input) and "dense" (pre-NTT'd operand input) share
-    # the same scan body modulo the per-term transform
     accs = _mac_accs_u64(ctx, c0, key, pts, slab, mode)
     return tuple(
         (
@@ -415,25 +281,13 @@ def seeded_inner_product(
         )
 
     pts_pad = tuple(pad_to(p.astype(jnp.uint32)) for p in pts)
-    mode = _mac_mode()
-    scalar = all(p.shape[-1] == 1 for p in pts_pad) and ctx.ring.N == 1
-    if mode == "auto":
-        # r5 re-measure under threefry keys: u64 beats the byte-product MXU
-        # path at the flagship chunk shape (104 vs 147 ms 2-pt; the r3 "tie"
-        # was both modes hiding behind the rbg-in-scan stall).  mxu stays
-        # selectable for experiments.
-        mode = "u64"
-    if mode == "u64" and not scalar and ctx.ring.N > 1:
+    mode = "u64"
+    if ctx.ring.N > 1:
         # dense (poly-ring) plaintexts: hoist the per-term NTTs out of the
-        # scan, slab-chunked so the transform stays on the Pallas kernel
-        # (see _pre_ntt_chunked)
-        pts_pad = tuple(
-            _pre_ntt_chunked(ctx, p_, senc.slab) for p_ in pts_pad
-        )
+        # scan into one batched transform
+        pts_pad = tuple(_pre_ntt_kernel(ctx, p_) for p_ in pts_pad)
         mode = "dense"
-    accs = _seeded_mac_kernel(
-        ctx, senc.c0, senc.key, pts_pad, senc.slab, len(pts), mode
-    )
+    accs = _seeded_mac_kernel(ctx, senc.c0, senc.key, pts_pad, senc.slab, mode)
     outs = []
     max_level = max(ctx.L_inner - ctx.floor_limbs, 0) if use_modswitch else 0
     for a0, a1 in accs:

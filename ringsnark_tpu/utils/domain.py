@@ -2,7 +2,7 @@
 
 Two implementations (DESIGN.md §3):
 
-* `RootsDomain` (default, TPU-native): per-limb power-of-two roots of unity
+* `RootsDomain` (default, accelerator-native): per-limb power-of-two roots of unity
   with bit-reversed point labeling (matching ops/ntt.py).  Every O(m^2) loop
   of the reference (`/root/reference/ringsnark/util/evaluation_domain.tcc`)
   becomes a closed form or an NTT: Lagrange evaluation O(M), vanishing
@@ -159,7 +159,7 @@ class RootsDomain:
         """Random scalar s with s and s^M - 1 invertible mod every limb.
 
         (s - x_j invertible for all j  ⇔  prod_j (s - x_j) = s^M - 1
-        invertible.)  The TPU analog of `seal_ring.hpp:72-88`.
+        invertible.)  The batched analog of `seal_ring.hpp:72-88`.
         """
         res = np.empty(self.ctx.L, dtype=np.uint32)
         for l, p in enumerate(self.ctx.primes):

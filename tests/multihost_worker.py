@@ -3,7 +3,7 @@
 Each process owns 4 virtual CPU devices; the global ('limb','data') mesh is
 laid out so the **data axis crosses the process boundary** — the CRS
 inner-product psum therefore rides the cross-process (Gloo) link, the
-CPU-land analog of a DCN hop between TPU hosts (BASELINE configs 3-5).
+CPU-land analog of a network hop between accelerator hosts (BASELINE configs 3-5).
 Both processes independently compute the single-process proof and assert the
 cross-host proof is bit-identical.
 

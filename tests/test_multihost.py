@@ -3,7 +3,7 @@
 Spawns two OS processes, each owning 4 virtual CPU devices, joined through
 `jax.distributed` with Gloo collectives.  The global mesh's 'data' axis
 spans the process boundary, so the CRS inner-product reduction crosses the
-host-to-host link (the CPU analog of a TPU DCN hop).  The workers assert the
+host-to-host link (the CPU analog of a network hop between accelerator hosts).  The workers assert the
 cross-host proof is bit-identical to the single-process proof and verifies.
 """
 

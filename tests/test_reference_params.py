@@ -2,7 +2,7 @@
 
 The reference's oracle worksheet (`/root/reference/docs/qrp.sage:3-7`) uses
 the 3-limb modulus q1=0xffffee001, q2=0xffffc4001, q3=0x1ffffe0001 (36/37-bit
-primes — beyond the 31-bit TPU fast path, handled exactly by the Python-int
+primes — beyond the 31-bit device fast path, handled exactly by the Python-int
 oracle ring) and builds a toy QRP by Newton interpolation over Z_q1.  These
 tests replay that math with our generic algorithms:
 
@@ -109,8 +109,8 @@ def test_sage_circuit_qrp_identity(oc):
 
 
 @pytest.mark.parametrize(
-    "ring", ["oracle", pytest.param("tpu", marks=pytest.mark.slow)]
-)  # the tpu variant re-runs the same math through per-op RingElem dispatch
+    "ring", ["oracle", pytest.param("device", marks=pytest.mark.slow)]
+)  # the device variant re-runs the same math through per-op RingElem dispatch
 # (~1 min of tiny jits); RingElem arithmetic is covered by test_rings.py.
 def test_interpolation_roundtrip_reference_style(ring, oc):
     """interpolation_test.cpp:29-83 over both ring types."""
@@ -140,7 +140,7 @@ def test_interpolation_roundtrip_reference_style(ring, oc):
         assert via == _poly.eval_poly(coeffs, t)
 
 
-@pytest.mark.parametrize("ring", ["oracle", "tpu"])
+@pytest.mark.parametrize("ring", ["oracle", "device"])
 def test_division_reference_style(ring, oc):
     """division_test.cpp:28-49: divide(multiply(q, x), x) == q, n = 110."""
     n = 110

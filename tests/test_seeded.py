@@ -131,34 +131,39 @@ def test_seeded_prover_matches_expanded_prover(builder):
         assert (np.asarray(a.c1) == np.asarray(b.c1)).all()
 
 
-def test_mac_mxu_matches_u64(monkeypatch):
-    """The MXU byte-product MAC is bit-identical to the generic u64 path."""
-    params = _params(N=1, L=2)
+def test_scalar_mac_matches_native():
+    """The scalar-plaintext scan MAC equals the native C++ inner product of
+    the expanded ciphertexts with the lifted plaintexts."""
+    from ringsnark_tpu import native
+    from ringsnark_tpu.encoding import keygen
+    from ringsnark_tpu.snark.seeded import _seeded_mac_kernel
+
+    params = _params(N=1, L=1)
     ectx = params.enc
     rng = np.random.default_rng(13)
-    from ringsnark_tpu.encoding import keygen
-
     _, sk = keygen(ectx, rng)
-    B = 21
+    B, slab = 24, 8
     msgs = RingElem.stack(
         [RingElem.random_element(ectx.ring, rng) for _ in range(B)]
     )
-    pts = [
+    pts = tuple(
         RingElem.stack(
             [RingElem.random_element(ectx.ring, rng) for _ in range(B)]
         ).res
         for _ in range(2)
-    ]
-    senc = encode_seeded(ectx, sk, msgs, jax.random.PRNGKey(17), slab=8)
-
-    monkeypatch.setenv("RINGSNARK_MAC_BACKEND", "u64")
-    got_u64 = seeded_inner_product(senc, pts)
-    monkeypatch.setenv("RINGSNARK_MAC_BACKEND", "mxu")
-    got_mxu = seeded_inner_product(senc, pts)
-    for a, b in zip(got_u64, got_mxu):
-        assert a.level == b.level
-        assert (np.asarray(a.c0) == np.asarray(b.c0)).all()
-        assert (np.asarray(a.c1) == np.asarray(b.c1)).all()
+    )
+    senc = encode_seeded(ectx, sk, msgs, jax.random.PRNGKey(17), slab=slab)
+    got = _seeded_mac_kernel(ectx, senc.c0, senc.key, pts, slab)
+    full = senc.expand()
+    t = ectx.ring.primes[0]
+    for i, pt in enumerate(pts):
+        for j, q in enumerate(ectx.inner_primes):
+            w = native.lift_rows(np.asarray(pt[:, 0, 0]), t, q)
+            for k, c in enumerate((full.c0, full.c1)):
+                want = native.ip_accumulate_scalar(
+                    np.asarray(c[:, 0, j, :]), w, q
+                )
+                assert (np.asarray(got[i][k][0, j]) == want).all()
 
 
 def test_square_chain_satisfied():
